@@ -6,7 +6,7 @@ nibbles per byte; diff = step/8 + step/4*b0 + step/2*b1 + step*b2 with the
 step looked up at the *pre-update* index; sign bit b3; index advanced by the
 standard IMA index table and clamped to [0, 88].
 
-The TPU path (ops/adpcm.py) reformulates the recurrences as two associative
+The device path (ops/adpcm.py) reformulates the recurrences as two associative
 scans; tests check it bit-exact against this oracle.
 """
 from __future__ import annotations

@@ -5,7 +5,7 @@ behavioral mirror of the reference decoder
 (`/root/reference/LibMobiclip/Codec/Mobiclip/MobiclipDecoder.cs`, cited per
 method below), written in plain Python/NumPy.  It is intentionally sequential
 and unoptimized — its job is to be obviously correct so that every vectorized
-TPU kernel in `mobiclipdecoder_tpu.ops` can be property-tested against it
+device kernel in `mobiclipdecoder_tpu.ops` can be property-tested against it
 bit-for-bit on the YUV planes.
 
 Integer-exactness notes (the things that make this codec easy to get wrong):
@@ -561,7 +561,7 @@ class OracleDecoder:
         return coefs, last
 
     # ------------------------------------------- execution hooks (oracle)
-    # Subclasses (the TPU frame planner) override _exec_* to record ops
+    # Subclasses (the frame planner) override _exec_* to record ops
     # instead of reconstructing; the parse path above is shared verbatim.
     def _exec_mc(self, w: int, h: int, ref: int, dx: int, dy: int,
                  off: int) -> None:

@@ -1,6 +1,6 @@
 """Frame planner: entropy-scan a frame into a device-friendly *frame plan*.
 
-This is the TPU-native architecture's central seam (SURVEY.md §7): the codec
+This is the architecture's central seam (SURVEY.md §7): the codec
 splits into an inherently sequential bitstream scan (entropy + mode + MV
 decode) and massively parallel pixel reconstruction.  ``PlanningDecoder``
 subclasses the oracle (sharing its parse path verbatim — zero divergence risk)
@@ -69,9 +69,9 @@ _SIZE_LOG = {2: 1, 4: 2, 8: 3, 16: 4}
 
 def pack_unified(ops: list[tuple], stride: int, height: int,
                  mr: int = 8, mcol: int = 8) -> dict:
-    """Pack a decode-order op list into the VMEM executor's flat arrays.
+    """Pack a decode-order op list into the whole-GOP executor's arrays.
 
-    The sequential VMEM engine (ops/vmem_engine.py) executes ops in the
+    The sequential executor engine (ops/vmem_engine.py) executes ops in the
     reference's exact decode order, so no sequence maps or dependency levels
     are needed — "read whatever is in the plane" semantics hold by
     construction.  Record (int32 x 4):
@@ -512,7 +512,7 @@ class PlanningDecoder(OracleDecoder):
         return super().decode_frame(rgb=False)
 
     def unified_plan(self) -> dict:
-        """Decode-order op stream for the sequential VMEM engine."""
+        """Decode-order op stream for the sequential executor engine."""
         return pack_unified(self._ops, self.stride, self.height)
 
     def plan(self) -> FramePlan:

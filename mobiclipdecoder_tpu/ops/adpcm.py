@@ -1,4 +1,4 @@
-"""IMA ADPCM as two associative scans (the TPU-native formulation).
+"""IMA ADPCM as two associative scans (the device formulation).
 
 The sample-sequential IMA recurrence (models/audio_ima.py) looks inherently
 serial, but both state variables evolve by clamped adds, and clamped-add maps

@@ -4,7 +4,7 @@ The FastAudio codec (models/audio_fastaudio.py, mirror of
 LibMobiclip/Codec/FastAudio/FastAudioDecoder.cs:41-72) splits naturally at
 the same seam as video: packet unpacking (bitstream work, host) vs the
 8-tap lattice synthesis filter (sample-sequential arithmetic, device).
-One channel's filter is a scalar recurrence — worthless on a TPU alone —
+One channel's filter is a scalar recurrence — worthless on a device alone —
 but a transcode job carries CHANNELS x STREAMS independent recurrences, so
 the device formulation is a `lax.scan` over the 256 samples of a packet
 with every channel in the batch advancing one sample per step (the same
@@ -13,8 +13,9 @@ kernel in ops/adpcm.py uses an associative scan instead because its
 recurrence composes).
 
 Bit-exactness: the reference computes `(coef * hist + 0x4000) >> 15` in
-unbounded intermediate precision (the oracle uses Python ints).  TPUs have
-no native int64, so the product is split exactly in int32:
+unbounded intermediate precision (the oracle uses Python ints).  The device
+program stays in int32 (JAX disables int64 by default), so the product is
+split exactly in int32:
 
     b = bh * 2^15 + bl   (bl = b & 0x7FFF in [0, 2^15), bh = b >> 15)
     (a*b + 0x4000) >> 15 == a*bh + ((a*bl + 0x4000) >> 15)

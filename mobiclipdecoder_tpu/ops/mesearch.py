@@ -1,7 +1,7 @@
 """Device-side full-search SAD volume for the encoder's motion search.
 
 The reference analyzer runs a log/diamond descent per block per reference
-frame on the CPU (Analyzer.cs:608-679).  The TPU-first formulation inverts
+frame on the CPU (Analyzer.cs:608-679).  The device formulation inverts
 the loop: ONE jitted program computes the SAD of EVERY 8x8 tile of the
 frame against EVERY full-pel offset in a +-`range_` window of EVERY
 reference frame — a (cands, refs, H/8, W/8) volume.  Any 8-aligned leaf of

@@ -1,23 +1,18 @@
-"""Multi-stream batched decoding — the TPU saturation axis.
+"""Multi-stream batched decoding through the XLA wavefront engine.
 
-One DS/3DS frame is tiny (a 256x192 ring is ~432 KiB); a single chip is
-saturated by decoding *many independent streams/GOPs at once*
-(BASELINE.md workload constants).  This module stacks per-stream FramePlans
-into (B, ...) arrays (padded to shared static shapes) and reconstructs the
-whole batch in one jitted call; a whole GOP can be decoded in one device
-program via `lax.scan` over frames.
+One DS/3DS frame is tiny (a 256x192 ring is ~432 KiB); a device is filled
+by decoding *many independent streams/GOPs at once* (BASELINE.md workload
+constants).  This module stacks per-stream FramePlans into (B, ...) arrays
+(padded to shared static shapes) and reconstructs the whole batch in one
+jitted call; a whole GOP can be decoded in one device program via
+`lax.scan` over frames.  It is the cross-check engine for the whole-GOP
+executor (ops/vmem_engine.py), which is the hot path.
 
 With a `jax.sharding.Mesh` the batch axis maps onto the mesh's "data" axis
-(corpus/GOP data-parallelism).  There is deliberately NO spatial "tile"
-axis: measured on an 8-device mesh (tools/probe_tile_hlo.py), GSPMD
-responds to width-sharding the ring by emitting an immediate full-plane
-``all-gather`` — the decode-order scattered plane updates make width
-partitioning unprofitable — so a tile spec only added collective traffic
-while every device still materialized the whole plane.  Streams/GOPs are
-the scaling axis (a DS ring is 432 KiB; Wii frames decode multiple-x
-realtime on one chip).  SURVEY.md §5's explicit ppermute 1-px halo +
-MC-apron exchange remains the design on file should a future profile
-exceed single-chip frames.  Multi-host GOP assignment lives in
+(corpus/GOP data-parallelism).  There is deliberately no spatial axis:
+GSPMD answers width-sharding of the ring with a full-plane all-gather,
+because decode-order plane updates scatter across the whole plane, so
+streams/GOPs are the scaling axis.  Multi-host GOP assignment lives in
 parallel/gop.py.
 """
 from __future__ import annotations
@@ -103,8 +98,7 @@ class BatchVideoDecoder:
         self.ring = jnp.zeros((batch, 6, HH, self.stride), jnp.int32)
         if mesh is not None:
             self.data_sharding = NamedSharding(mesh, P("data"))
-            # batch axis only — width-tiling measured as a net loss (see
-            # module docstring / tools/probe_tile_hlo.py)
+            # batch axis only (see the module docstring)
             self.ring_sharding = NamedSharding(mesh, P("data"))
             self.ring = jax.device_put(self.ring, self.ring_sharding)
 

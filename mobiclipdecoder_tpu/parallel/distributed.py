@@ -2,11 +2,15 @@
 
 The codec's scaling story (SURVEY.md §5): GOPs are fully independent
 (keyframes reset every piece of decoder state), so corpus-level scaling is
-host-level data parallelism over GOP shards — DCN distributes work by
-deterministic assignment, each host's chip(s) decode their shards through the
-VMEM engine, and results land in per-shard files that a driver gathers.
-Nothing crosses ICI between shards; scaling efficiency is bounded only by
-host scan throughput and shard balance (assign_shards is size-balanced).
+data parallelism over GOP shards — workers take shards by deterministic
+assignment, each decodes its shards through the whole-GOP executor on its
+own card, and results land in per-shard files that a driver gathers.
+Nothing crosses between cards; scaling efficiency is bounded only by host
+scan throughput and shard balance (assign_shards is size-balanced).
+
+Launch form: ONE worker process per card.  A JAX process reserves most of
+the memory of every card it can see, so a worker pins itself to one card
+(``pin_worker_card``) before it first touches the device.
 
 The worker is restartable: a JSONL ledger records finished (file, gop) pairs
 (ShardProgress), mirroring the reference's JumpToKeyFrame seek design
@@ -16,6 +20,8 @@ keyframes rebuild all of it (MobiclipDecoder.cs:231-236).
 from __future__ import annotations
 
 import json
+import os
+import subprocess
 from pathlib import Path
 
 import numpy as np
@@ -37,6 +43,37 @@ def init_distributed(coordinator: str | None = None,
                                num_processes=num_processes,
                                process_id=process_id)
     return jax.process_index(), jax.process_count()
+
+
+def _count_cards() -> int:
+    """Cards on this machine per nvidia-smi, 0 where there is none."""
+    try:
+        out = subprocess.run(["nvidia-smi", "--query-gpu=index",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True, timeout=30, check=True).stdout
+    except (OSError, subprocess.SubprocessError):
+        return 0
+    return len([ln for ln in out.splitlines() if ln.strip()])
+
+
+def pin_worker_card(worker_id: int, env=None, n_cards=None) -> str | None:
+    """Restrict this process to one card: worker k takes card k modulo the
+    cards it may use (``CUDA_VISIBLE_DEVICES`` when set, else every card
+    nvidia-smi lists).  A process already restricted to one card keeps it.
+    Returns the card id, or None when there is no card to pin (CPU runs).
+    Takes effect only before JAX first initializes its GPU backend."""
+    env = os.environ if env is None else env
+    vis = env.get("CUDA_VISIBLE_DEVICES")
+    if vis is not None:
+        cards = [c.strip() for c in vis.split(",") if c.strip()]
+    else:
+        n = _count_cards() if n_cards is None else n_cards
+        cards = [str(i) for i in range(n)]
+    if not cards:
+        return None
+    card = cards[worker_id % len(cards)]
+    env["CUDA_VISIBLE_DEVICES"] = card
+    return card
 
 
 def shard_corpus(files: list[str | Path]) -> list[GopShard]:
@@ -66,13 +103,18 @@ def _load_ledger(path: Path) -> ShardProgress:
 def run_worker(files: list[str | Path], out_dir: str | Path,
                worker_id: int = 0, n_workers: int = 1,
                width: int | None = None, height: int | None = None,
-               engine: str = "tpu", batch: int = 8) -> dict:
+               engine: str = "device", batch: int = 8) -> dict:
     """Decode this worker's GOP shards to per-shard .yuv files.
 
     Idempotent: a ledger at <out_dir>/worker<k>.ledger.jsonl records finished
     shards; rerunning (e.g. after a preemption) resumes from partial
-    progress.  Returns summary stats."""
+    progress.  With the device engine the process first pins itself to one
+    card (``pin_worker_card``), unless JAX was told to run on the CPU.
+    Returns summary stats."""
+    import jax
     from ..runtime.transcode import probe_info
+    if engine == "device" and (jax.config.jax_platforms or "") != "cpu":
+        pin_worker_card(worker_id)
     out_dir = Path(out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
     ledger_path = out_dir / f"worker{worker_id}.ledger.jsonl"
@@ -107,10 +149,10 @@ def run_worker(files: list[str | Path], out_dir: str | Path,
         frames += shard.frame_count
 
     with open(ledger_path, "a") as ledger:
-        if engine == "tpu":
+        if engine == "device":
             # lockstep batching: group same-(geometry, length) shards and
-            # decode up to `batch` of them per fused-GOP device program
-            # (BASELINE.md: many small streams at once is what fills a chip)
+            # decode up to `batch` of them per whole-GOP launch (one
+            # program per stream: many streams at once fill the card)
             groups: dict[tuple, list] = {}
             for shard in pending:
                 key = geos[shard.file_id] + (shard.frame_count,)
@@ -122,7 +164,7 @@ def run_worker(files: list[str | Path], out_dir: str | Path,
                     bd = VmemBatchDecoder(W, H, ver, batch=len(grp))
                     gop = [[grp[b].packets[f] for b in range(len(grp))]
                            for f in range(F)]
-                    out = bd.decode_gop(gop, fused=True)  # (F, B, HH, S)
+                    out = bd.decode_gop(gop)  # (F, B, HH, S)
                     for b, shard in enumerate(grp):
                         _finish(shard, out[:, b], ledger)
         else:

@@ -5,8 +5,8 @@ There is no test suite, no fixtures and no golden data in the reference
 *synthesized*: this module emits structurally valid bitstreams (every header,
 partition code, intra mode, CBP and coefficient is a legal encoding per the
 format rules implemented in models/oracle_video.py), with controllable
-randomness.  The oracle decodes them to define golden YUV planes; the TPU
-pipeline must match bit-for-bit.
+randomness.  The oracle decodes them to define golden YUV planes; the device
+engines must match bit-for-bit.
 
 It is deliberately NOT an encoder: predictions don't try to match any source
 image — any legal stream decodes to *some* deterministic YUV, which is all

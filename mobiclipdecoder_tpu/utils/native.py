@@ -1,12 +1,14 @@
 """ctypes bridge to the native C++ scanner/planner (native/scanner.cpp).
 
-Builds the shared library on first use (g++ -O2, cached in native/build/),
+Builds the shared library from the committed source on first use (g++ -O3,
+cached in the gitignored native/build/),
 packs the codec tables into the blob layout the C++ side expects, and wraps
 scans into FramePlan objects identical to the Python planner's output.
 """
 from __future__ import annotations
 
 import ctypes
+import os
 import struct
 import subprocess
 from pathlib import Path
@@ -58,10 +60,14 @@ def _load():
         return _lib
     if not _SO.exists() or _SO.stat().st_mtime < _SRC.stat().st_mtime:
         _SO.parent.mkdir(parents=True, exist_ok=True)
+        # build under a private name, then rename: concurrent first users
+        # (parallel test workers) never load a half-written library
+        tmp = _SO.with_name(f"{_SO.name}.{os.getpid()}.tmp")
         subprocess.run(
             ["g++", "-O3", "-std=c++17", "-shared", "-fPIC",
-             str(_SRC), "-o", str(_SO)],
+             str(_SRC), "-o", str(tmp)],
             check=True, capture_output=True)
+        os.replace(tmp, _SO)
     lib = ctypes.CDLL(str(_SO))
     lib.scanner_create.restype = ctypes.c_void_p
     lib.scanner_create.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -129,7 +135,7 @@ class NativePlanner:
 
     def scan_unified(self, packet: bytes) -> dict:
         """Unified decode-order op stream (models/plan.py pack_unified
-        layout) for the VMEM engine; bit-identical to
+        layout) for the executor engine; bit-identical to
         PlanningDecoder.unified_plan()."""
         # np.empty is safe: the C++ side fully writes every op row it emits
         # and memsets each used coefficient row (scanner.cpp emit paths);

@@ -5,7 +5,7 @@
 // FramePlan arrays the JAX engine consumes — MC leaves, inter residual
 // blocks, dependency-leveled intra ops, and the first-write sequence maps.
 // Bit-for-bit identical plans to the Python planner (tests/test_native.py);
-// ~20x faster, which keeps a batched TPU fed from a handful of host cores.
+// ~20x faster, which keeps a batched device fed from a handful of host cores.
 //
 // Semantics are the reference decoder's (file:line cites are to
 // /root/reference/LibMobiclip/Codec/Mobiclip/MobiclipDecoder.cs); table data
@@ -54,7 +54,7 @@ struct PlanSink {
   std::vector<int32_t> lvl_y, lvl_uv;
   int n_levels = 0;
   int seq = 0;  // running op sequence
-  // unified decode-order op stream (VMEM engine, models/plan.py
+  // unified decode-order op stream (executor engine, models/plan.py
   // pack_unified): rows of {w0 bitfields, row|col<<16, dx|dy / grad, coef
   // idx}; coefficient rows in ucoef (64 each) with sizes in usize.
   int32_t *uops = nullptr;  int uops_cap = 0,  uops_n = 0;   // (cap, 4)
@@ -1280,7 +1280,7 @@ int scanner_scan(void *ctx, const uint8_t *pkt, int pkt_len,
   return consumed;
 }
 
-// Unified decode-order op stream for the VMEM engine (models/plan.py
+// Unified decode-order op stream for the executor engine (models/plan.py
 // pack_unified layout).  out_meta gets {uops_n, ucoef_n, overflow}.
 // Returns the consumed byte offset or -1 on error.
 int scanner_scan_unified(void *ctx, const uint8_t *pkt, int pkt_len,

@@ -72,8 +72,8 @@ def test_no_collectives_in_batch_decode():
     """Streams are independent, so the data-parallel batch program must
     contain ZERO collectives.  This is the regression gate for the round-2
     'decorative tile axis' finding: width-sharding the ring made GSPMD
-    all-gather the whole plane on every device (measured,
-    tools/probe_tile_hlo.py), so the tile spec was removed — if a plane
+    all-gather the whole plane on every device (measured on an 8-device
+    CPU mesh), so the tile spec was removed — if a plane
     sharding ever sneaks back in, the gather reappears here."""
     from mobiclipdecoder_tpu.parallel.batch import _decode_batch
     import jax.numpy as jnp

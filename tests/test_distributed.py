@@ -68,12 +68,12 @@ def test_sharded_results_match_straight_decode(tmp_path):
     np.testing.assert_array_equal(got, np.stack(ref))
 
 def test_tpu_worker_lockstep_batching_matches_oracle(tmp_path):
-    """engine="tpu" groups same-shape shards into one fused-GOP program;
+    """engine="device" groups same-shape shards into one fused-GOP program;
     outputs must equal the oracle worker's shard files exactly."""
     files = _corpus(tmp_path, n_files=3)
-    out_t = tmp_path / "out_tpu"
+    out_t = tmp_path / "out_device"
     out_o = tmp_path / "out_oracle"
-    st = run_worker(files, out_t, worker_id=0, n_workers=1, engine="tpu",
+    st = run_worker(files, out_t, worker_id=0, n_workers=1, engine="device",
                     batch=4)
     so = run_worker(files, out_o, worker_id=0, n_workers=1, engine="oracle")
     assert st["frames"] == so["frames"] > 0

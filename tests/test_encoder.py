@@ -68,9 +68,9 @@ def test_tpu_pipeline_decodes_encoder_output():
     frames = _test_video(W, H, 3, seed=2)
     enc = MobiclipEncoder(W, H, MobiclipVersion.MOFLEX_3DS,
                           quantizer=0x14, gop=3)
-    tpu = JaxVideoDecoder(W, H, MobiclipVersion.MOFLEX_3DS)
+    dec = JaxVideoDecoder(W, H, MobiclipVersion.MOFLEX_3DS)
     for y, u, v in frames:
         pkt = enc.encode_frame(y, u, v)
-        yt, uvt = tpu.decode_frame(pkt + b"\x00\x00")
+        yt, uvt = dec.decode_frame(pkt + b"\x00\x00")
         np.testing.assert_array_equal(yt.ravel(), enc.twin.y_planes[0])
         np.testing.assert_array_equal(uvt.ravel(), enc.twin.uv_planes[0])

@@ -1,5 +1,5 @@
 """Format-surface exactness gates: every decoder branch the synthesizer can
-reach must execute on the PRODUCTION path (C++ scanner + VMEM engine), not
+reach must execute on the PRODUCTION path (C++ scanner + executor engine), not
 just the oracle.
 
 Round-3 review finding: the synthesizer emitted coefficients exclusively as
@@ -9,7 +9,7 @@ odd (half-pel) luma MVs (CopyBlock :418-456), 4x4 intra mode 18 (:2734),
 P-frame dQP (:119-143), the I-frame VLC table-select bit (:226-227), or the
 Moflex QP clamp edges (:3886-3890).  These tests pin all of that, asserting
 both *that* the branches are exercised (synthesizer stats) and that the
-native scanner + VMEM kernel agree with the oracle bit-exactly on them.
+native scanner + executor kernel agree with the oracle bit-exactly on them.
 """
 import numpy as np
 import pytest
@@ -23,7 +23,7 @@ from mobiclipdecoder_tpu.ops.vmem_engine import VmemVideoDecoder  # noqa: E402
 
 
 def _assert_engine_matches_oracle(pkts, W, H, version, native):
-    """Every packet through oracle and VMEM engine (native C++ scan when
+    """Every packet through oracle and executor engine (native C++ scan when
     native=True); planes must agree bit-exactly."""
     oracle = OracleDecoder(W, H, version)
     eng = VmemVideoDecoder(W, H, version, interpret=True, native=native)
@@ -69,7 +69,7 @@ def test_synth_covers_format_surface(version):
                                      MobiclipVersion.MOFLEX_3DS])
 def test_table1_and_dqp_through_vmem(version, native, W=64, H=48):
     """I-frame VLC table 1 + non-zero P-frame dQP through the Python and
-    C++ scan paths into the VMEM kernel, bit-exact vs the oracle."""
+    C++ scan paths into the executor kernel, bit-exact vs the oracle."""
     s = StreamSynthesizer(W, H, version, seed=3)
     pkts = _gop(s, 6, table=1, dqs=[0, 2, -1, 3])
     _assert_engine_matches_oracle(pkts, W, H, version, native)
@@ -117,7 +117,7 @@ def test_big_levels_dense_fallback_e2e(W=64, H=48):
 def test_encoder_streams_through_native_and_vmem(native):
     """Encoder-generated streams (full plain/esc1/esc2/esc3 cascade +
     half-pel ME) must decode bit-exactly through the C++ scanner and the
-    VMEM kernel — the production path, not just the oracle (round-3 gap:
+    executor kernel — the production path, not just the oracle (round-3 gap:
     encoder round-trips only ever ran through oracle + pipeline engine)."""
     from mobiclipdecoder_tpu.models.encoder import MobiclipEncoder
     W, H = 48, 32

@@ -2,53 +2,16 @@
 
 Builds a synthetic .mods fixture (muxer + stream synthesizer + IMA encoder),
 then decodes it through the full runtime path with both engines and checks
-oracle/TPU agreement, audio decode, keyframe indexing, and the CLI.
+oracle/device-engine agreement, audio decode, keyframe indexing, and the CLI.
 """
-import json
-import subprocess
-import sys
-from pathlib import Path
-
 import numpy as np
-import pytest
 
-from mobiclipdecoder_tpu.containers.mods import ModsDemuxer, ModsMuxer
-from mobiclipdecoder_tpu.models.audio_ima import ImaAdpcmDecoder, encode_ima
-from mobiclipdecoder_tpu.models.oracle_video import MobiclipVersion
+from mobiclipdecoder_tpu.containers.mods import ModsDemuxer
 from mobiclipdecoder_tpu.runtime.transcode import decode_mods, transcode
-from mobiclipdecoder_tpu.testing.synth import StreamSynthesizer
+from mobiclipdecoder_tpu.testing.containers import mods_file
 
 
-def _build_fixture(nframes=6, W=64, H=48, channels=2, seed=11,
-                   key_at=(0, 3)) -> bytes:
-    synth = StreamSynthesizer(W, H, MobiclipVersion.MODS_DS, seed=seed)
-    mux = ModsMuxer(W, H, fps=24.0, audio_codec=3, nb_channel=channels,
-                    frequency=16384)
-    # Per-channel IMA streams restart at every keyframe (the decoder resets
-    # its audio state there, Program.cs:255-265); first packet of each
-    # segment carries the 4-byte state header (Program.cs:268-270).
-    segments = sorted(key_at) + [nframes]
-    per_frame_pkts: list[list[bytes]] = [[] for _ in range(nframes)]
-    for s in range(len(segments) - 1):
-        f0, f1 = segments[s], segments[s + 1]
-        nfr = f1 - f0
-        for c in range(channels):
-            t = np.arange(nfr * 256) + f0 * 256
-            wave = (4000 * np.sin(t / (5 + c))).astype(np.int16)
-            blob = encode_ima(wave, index0=8)
-            hdr, body = blob[:4], blob[4:]
-            for i in range(nfr):
-                chunk = body[i * 128:(i + 1) * 128]
-                chunk = chunk + bytes(128 - len(chunk))
-                per_frame_pkts[f0 + i].append(
-                    (hdr + chunk) if i == 0 else chunk)
-    for i in range(nframes):
-        video = synth.iframe(0x18, pad=False) if i in key_at \
-            else synth.pframe(pad=False)
-        if i in key_at:
-            synth.frame_idx = 1  # ring restart semantics for P-frames after
-        mux.add_frame(video, per_frame_pkts[i], keyframe=(i in key_at))
-    return mux.to_bytes()
+_build_fixture = mods_file
 
 
 def test_demux_roundtrip():
@@ -88,7 +51,7 @@ def test_e2e_oracle_decode_with_audio():
 def test_e2e_tpu_matches_oracle():
     blob = _build_fixture()
     a = list(decode_mods(blob, engine="oracle"))
-    b = list(decode_mods(blob, engine="tpu"))
+    b = list(decode_mods(blob, engine="device"))
     assert len(a) == len(b)
     for fa, fb in zip(a, b):
         np.testing.assert_array_equal(fa.y, fb.y)
@@ -113,7 +76,7 @@ def test_cli_transcode(tmp_path):
 
 
 def test_e2e_tpu_chunked_containment_matches_policy():
-    """A corrupted mid-stream frame through the chunked tpu path must come
+    """A corrupted mid-stream frame through the chunked device path must come
     back corrupt=True showing the last committed frame, with later frames
     decoding normally (frames after a corrupt one reference whatever state
     exists, so only corruption flags — not pixels — are asserted there)."""
@@ -121,7 +84,7 @@ def test_e2e_tpu_chunked_containment_matches_policy():
     # flip bytes inside a late frame payload (last quarter of the blob)
     for i in range(len(blob) * 3 // 4, len(blob) * 3 // 4 + 16):
         blob[i] ^= 0xFF
-    frames = list(decode_mods(bytes(blob), engine="tpu"))
+    frames = list(decode_mods(bytes(blob), engine="device"))
     oracle = list(decode_mods(bytes(blob), engine="oracle"))
     assert len(frames) == len(oracle) == 6
     # frames before the first corruption must stay bit-exact; the stream
@@ -140,7 +103,7 @@ def test_e2e_tpu_chunk_boundary_exactness():
     try:
         blob = _build_fixture(nframes=8, seed=13, key_at=(0, 4))
         a = list(decode_mods(blob, engine="oracle"))
-        b = list(decode_mods(blob, engine="tpu"))
+        b = list(decode_mods(blob, engine="device"))
         assert len(a) == len(b) == 8
         for fa, fb in zip(a, b):
             np.testing.assert_array_equal(fa.y, fb.y)

@@ -1,17 +1,13 @@
 """Moflex container: mux/demux round-trip + A/V end-to-end decode."""
 import numpy as np
-import pytest
 
-from mobiclipdecoder_tpu.containers.moflex import (AudioStream, BeBitReader,
-                                                   MoflexDemuxer, MoflexMuxer,
+from mobiclipdecoder_tpu.containers.moflex import (MoflexDemuxer,
                                                    VideoStream, read_varint7,
                                                    read_synchro_header,
                                                    write_varint7,
                                                    _synchro_checksum)
-from mobiclipdecoder_tpu.models.audio_ima import encode_ima
-from mobiclipdecoder_tpu.models.oracle_video import MobiclipVersion
 from mobiclipdecoder_tpu.runtime.transcode import decode_moflex
-from mobiclipdecoder_tpu.testing.synth import StreamSynthesizer
+from mobiclipdecoder_tpu.testing.containers import moflex_file
 
 
 def test_varint7_roundtrip():
@@ -35,35 +31,7 @@ def test_synchro_header_roundtrip():
         assert got[0] == ts and got[1] == 0x1000
 
 
-def _build_moflex(nframes=4, W=64, H=48, with_audio=True, seed=21):
-    synth = StreamSynthesizer(W, H, MobiclipVersion.MOFLEX_3DS, seed=seed)
-    chunks = [VideoStream(stream_index=0, codec_id=0, fps_rate=24,
-                          fps_scale=1, width=W, height=H)]
-    channels = 2
-    if with_audio:
-        chunks.append(AudioStream(stream_index=1, codec_id=1,
-                                  frequency=16384, channels=channels))
-    mux = MoflexMuxer(chunks)
-    for i in range(nframes):
-        video = synth.iframe(0x12, pad=False) if i == 0 \
-            else synth.pframe(pad=False)
-        mux.add_frame(0, video)
-        if with_audio:
-            # Moflex IMA audio frame: 4-byte header per channel, then
-            # 128-byte packets round-robin (Form1.cs:601-630)
-            frame = bytearray()
-            bodies = []
-            for c in range(channels):
-                t = np.arange(512) + i * 512
-                wave = (3000 * np.sin(t / (6 + c))).astype(np.int16)
-                blob = encode_ima(wave, index0=4)
-                frame += blob[:4]
-                bodies.append(blob[4:4 + 256])
-            for k in range(0, 256, 128):
-                for c in range(channels):
-                    frame += bodies[c][k:k + 128]
-            mux.add_frame(1, bytes(frame))
-    return mux.to_bytes()
+_build_moflex = moflex_file
 
 
 def test_moflex_demux_video_frames():
@@ -79,7 +47,7 @@ def test_moflex_demux_video_frames():
 def test_moflex_e2e_oracle_vs_tpu():
     blob = _build_moflex()
     a = list(decode_moflex(blob, engine="oracle"))
-    b = list(decode_moflex(blob, engine="tpu"))
+    b = list(decode_moflex(blob, engine="device"))
     assert len(a) == 4 and len(b) == 4
     total_pcm = 0
     for fa, fb in zip(a, b):
@@ -114,7 +82,7 @@ def test_moflex_e2e_tpu_chunk_boundaries():
     try:
         blob = _build_moflex()
         a = list(decode_moflex(blob, engine="oracle"))
-        b = list(decode_moflex(blob, engine="tpu"))
+        b = list(decode_moflex(blob, engine="device"))
         assert len(a) == len(b) == 4
         for fa, fb in zip(a, b):
             np.testing.assert_array_equal(fa.y, fb.y)

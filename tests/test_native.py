@@ -70,7 +70,7 @@ def test_native_speedup():
 
 def test_native_unified_stream_matches_python():
     """scanner_scan_unified must be bit-identical to
-    PlanningDecoder.unified_plan() (ops to the VMEM engine)."""
+    PlanningDecoder.unified_plan() (ops to the executor engine)."""
     import numpy as np
     from mobiclipdecoder_tpu.models.oracle_video import MobiclipVersion
     from mobiclipdecoder_tpu.models.plan import PlanningDecoder

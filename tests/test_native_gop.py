@@ -156,7 +156,7 @@ def test_decode_gop_native_path_bit_exact_vs_oracle():
     B, F = 2, 6
     frames = _gop(B, F)
     bd = VmemBatchDecoder(256, 192, MobiclipVersion.MODS_DS, batch=B)
-    out = bd.decode_gop(frames, fused=True)
+    out = bd.decode_gop(frames)
     for b in range(B):
         odec = OracleDecoder(256, 192, MobiclipVersion.MODS_DS)
         S = odec.stride

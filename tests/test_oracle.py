@@ -2,7 +2,7 @@
 
 The reference has no test suite or fixtures (SURVEY.md §4); bitstreams are
 synthesized (mobiclipdecoder_tpu.testing.synth) and the oracle defines the
-golden YUV output for the TPU pipeline to match.
+golden YUV output for the device engines to match.
 """
 import numpy as np
 import pytest

@@ -1,4 +1,4 @@
-"""TPU-path pipeline vs oracle: bit-exact YUV equivalence on synth streams.
+"""XLA wavefront pipeline vs oracle: bit-exact YUV equivalence on synth streams.
 
 This is the project's core correctness gate: the planner + JAX reconstruction
 engine must reproduce the sequential oracle exactly — including decode-order
@@ -18,13 +18,13 @@ from mobiclipdecoder_tpu.models.pipeline import JaxVideoDecoder  # noqa: E402
 def _compare_gop(version, seed, W=64, H=48, nframes=4):
     synth = StreamSynthesizer(W, H, version, seed=seed)
     oracle = OracleDecoder(W, H, version)
-    tpu = JaxVideoDecoder(W, H, version)
+    dec = JaxVideoDecoder(W, H, version)
     for i in range(nframes):
         pkt = synth.iframe(0x18) if i == 0 else synth.pframe()
         oracle.data = pkt
         oracle.offset = 0
         oracle.decode_frame()
-        y_t, uv_t = tpu.decode_frame(pkt)
+        y_t, uv_t = dec.decode_frame(pkt)
         S = oracle.stride
         y_o = oracle.y_planes[0].reshape(-1, S)
         uv_o = oracle.uv_planes[0].reshape(-1, S)
@@ -35,7 +35,7 @@ def _compare_gop(version, seed, W=64, H=48, nframes=4):
                 f"frame {i}: Y mismatches {len(dy)} (first {dy[:5].tolist()}),"
                 f" UV mismatches {len(duv)} (first {duv[:5].tolist()})")
         # scanners must consume identical byte counts
-        assert oracle.offset == tpu.offset
+        assert oracle.offset == dec.offset
 
 
 @pytest.mark.parametrize("version", [MobiclipVersion.MODS_DS,

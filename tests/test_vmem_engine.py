@@ -1,7 +1,7 @@
-"""VMEM sequential-executor engine vs oracle: bit-exact YUV equivalence.
+"""Whole-GOP executor engine vs oracle: bit-exact YUV equivalence.
 
 The engine executes the unified decode-order op stream in one Pallas kernel
-(interpret mode on CPU here; compiled on real TPU by bench.py / the driver).
+(interpret mode on the CPU here; compiled for the GPU by chip_smoke.py).
 Must reproduce the sequential oracle exactly — including decode-order
 semantics and half-pel truncation.
 """
@@ -83,32 +83,6 @@ def test_vmem_decode_gop_matches_per_frame():
         np.testing.assert_array_equal(gop[f], per)
 
 
-def test_sparse_blob_roundtrip_exact():
-    """The sparse coef upload format must reconstruct (ops, coefs, sizes)
-    exactly on device; values >= 2**15 must trigger the dense fallback."""
-    import jax.numpy as jnp
-    from mobiclipdecoder_tpu.ops.vmem_engine import (_pack_blob_sparse,
-                                                     _unpack_sparse)
-
-    W, H, B = 64, 48, 2
-    v = MobiclipVersion.MODS_DS
-    synths = [StreamSynthesizer(W, H, v, seed=s) for s in (21, 22)]
-    bd = VmemBatchDecoder(W, H, v, batch=B, interpret=True, native=False)
-    for i in range(3):
-        pkts = [s.iframe(0x18) if i == 0 else s.pframe() for s in synths]
-        ops, coefs, sizes = bd.scan_packets(pkts)
-        blob, nnzb = _pack_blob_sparse(ops, coefs, sizes)
-        ring = jnp.zeros((B, 1, 1, 1, 1))  # only .shape[0] is used
-        o2, c2, s2 = _unpack_sparse(ring, jnp.asarray(blob),
-                                    ops.shape[1], coefs.shape[1], nnzb)
-        np.testing.assert_array_equal(np.asarray(o2), ops)
-        np.testing.assert_array_equal(np.asarray(c2), coefs)
-        np.testing.assert_array_equal(np.asarray(s2), sizes)
-    big = coefs.copy()
-    big[0, 0, 0] = 40000
-    assert _pack_blob_sparse(ops, big, sizes) is None
-
-
 def test_ops3_pack_roundtrip_and_bounds():
     """The 3-word packed op upload must round-trip exactly and reject rows
     whose fields exceed the packed widths (w0 26 bits, rr/cc 12, w3 14)."""
@@ -164,40 +138,6 @@ def test_gop_blob_sparse_dense_fallback():
                                  sizes.reshape(B, nct * CHUNK)) is None
 
 
-def test_vmem_sharded_round_matches_unsharded():
-    """The shard_map'd VMEM round over an 8-device CPU mesh must equal the
-    single-device round exactly (streams are independent)."""
-    import jax
-    import numpy as np
-    from jax.sharding import Mesh
-    from mobiclipdecoder_tpu.ops.vmem_engine import (_decode_round,
-                                                     decode_round_sharded)
-
-    W, H = 64, 48
-    v = MobiclipVersion.MODS_DS
-    B = 8
-    devs = jax.devices()[:8]
-    mesh = Mesh(np.array(devs), ("data",))
-    synths = [StreamSynthesizer(W, H, v, seed=s) for s in range(B)]
-    bd = VmemBatchDecoder(W, H, v, batch=B, interpret=True, native=False)
-    # independent buffers: the round donates its ring argument
-    import jax.numpy as jnp
-    ring_a = jnp.zeros_like(bd.ring)
-    ring_b = jnp.zeros_like(bd.ring)
-    for i in range(2):
-        pkts = [s.iframe(0x18) if i == 0 else s.pframe() for s in synths]
-        ops, coefs, sizes = bd.scan_packets(pkts)
-        ops4 = ops.reshape(B, -1, 4)
-        ring_a, ya = _decode_round(ring_a, ops.reshape(B, ops.shape[1],
-                                                       ops.shape[2], 4),
-                                   coefs, sizes, H, bd.stride, True)
-        ring_b, yb = decode_round_sharded(mesh, ring_b,
-                                          ops.reshape(B, ops.shape[1],
-                                                      ops.shape[2], 4),
-                                          coefs, sizes, H, bd.stride, True)
-        np.testing.assert_array_equal(np.asarray(ya), np.asarray(yb))
-
-
 def test_vmem_decode_gop_fused_matches_per_frame():
     """The whole-GOP single-launch path (HBM ring, modular slots) must equal
     per-frame decoding exactly, across more frames than ring slots so the
@@ -210,7 +150,7 @@ def test_vmem_decode_gop_fused_matches_per_frame():
               for f in range(F)]
     a = VmemBatchDecoder(W, H, v, batch=B, interpret=True, native=False)
     b = VmemBatchDecoder(W, H, v, batch=B, interpret=True, native=False)
-    gop = a.decode_gop(frames, fused=True)
+    gop = a.decode_gop(frames)
     for f in range(F):
         per = b.decode_frames(frames[f])
         np.testing.assert_array_equal(gop[f], per, err_msg=f"frame {f}")
@@ -227,8 +167,8 @@ def test_vmem_fused_gop_ring_carries_across_gops():
               for f in range(7)]
     a = VmemBatchDecoder(W, H, v, batch=B, interpret=True, native=False)
     b = VmemBatchDecoder(W, H, v, batch=B, interpret=True, native=False)
-    ga1 = a.decode_gop(frames[:4], fused=True)
-    ga2 = a.decode_gop(frames[4:], fused=True)
+    ga1 = a.decode_gop(frames[:4])
+    ga2 = a.decode_gop(frames[4:])
     for f in range(7):
         per = b.decode_frames(frames[f])
         got = ga1[f] if f < 4 else ga2[f - 4]
@@ -251,72 +191,55 @@ def test_vmem_decode_gops_streaming_matches():
     got = list(a.decode_gops(iter(gops)))
     assert len(got) == 3
     for g, arr in enumerate(got):
-        exp = b.decode_gop(gops[g], fused=True)
+        exp = b.decode_gop(gops[g])
         np.testing.assert_array_equal(arr, exp, err_msg=f"gop {g}")
 
 
-def test_vmem_wii_size_hbm_ring_matches_oracle(monkeypatch):
-    """Wii-geometry streams (ring > VMEM budget) must decode through the
-    fused kernel's HBM-ring (unstaged) mode, bit-exact vs the oracle.  The
-    budget is patched to 0 so a small test geometry exercises that mode
-    (real Wii 640x480 trips it naturally: 19.8 MiB ring)."""
+def _geometry_vs_oracle(W, H, seed, nframes):
+    """Decode a Moflex stream of a wide geometry frame by frame; every
+    plane must match the oracle, and the ring accessor must return the
+    last frame in the (HB, SB) buffer layout (margins MR=MCOL=8)."""
     from mobiclipdecoder_tpu.ops import vmem_engine as ve
-    monkeypatch.setattr(ve, "_VMEM_RING_BUDGET", 0)
-    W, H = 96, 80  # geometry unique to this test (executor builds are
-    #                lru-cached per shape and would otherwise collide with
-    #                a staged build of the same shape)
     v = MobiclipVersion.MOFLEX_3DS
-    synth = StreamSynthesizer(W, H, v, seed=9)
+    synth = StreamSynthesizer(W, H, v, seed=seed)
     oracle = OracleDecoder(W, H, v)
     eng = ve.VmemVideoDecoder(W, H, v, interpret=True, native=False)
-    assert eng._ring_hbm
-    for i in range(3):
+    S = oracle.stride
+    _hh, HB, SB = ve._geom(H, S)
+    assert eng.ring.shape == (1, 6, HB, SB) and SB == S + 32
+    for i in range(nframes):
         pkt = synth.iframe(0x18) if i == 0 else synth.pframe()
         oracle.data = pkt
         oracle.offset = 0
         oracle.decode_frame()
         y_t, uv_t = eng.decode_frame(pkt)
-        S = oracle.stride
         np.testing.assert_array_equal(
             oracle.y_planes[0].reshape(-1, S), y_t, err_msg=f"frame {i} Y")
         np.testing.assert_array_equal(
             oracle.uv_planes[0].reshape(-1, S), uv_t,
             err_msg=f"frame {i} UV")
-
-
-def test_vmem_packed_ring_matches_oracle(monkeypatch):
-    """Byte-packed VMEM ring mode (Wii sizes: int32 ring > budget but the
-    4-px/word packed ring fits) must stay bit-exact vs the oracle — MC
-    windows unpack via interleave matmuls, commits pack via paired bf16
-    matmuls.  Budget patched so a small unique geometry (96x64: 1.18 MiB
-    int32 ring, 384 KiB packed at the 128-lane-rounded staging width)
-    lands in mode 2 like real 640x480."""
-    from mobiclipdecoder_tpu.ops import vmem_engine as ve
-    monkeypatch.setattr(ve, "_VMEM_RING_BUDGET", 600 * 1024)
-    W, H = 96, 64
-    v = MobiclipVersion.MOFLEX_3DS
-    assert ve._ring_mode(H, 256) == 2
-    synth = StreamSynthesizer(W, H, v, seed=13)
-    oracle = OracleDecoder(W, H, v)
-    eng = ve.VmemVideoDecoder(W, H, v, interpret=True, native=False)
-    assert eng._ring_mode == 2 and eng._ring_hbm
-    for i in range(4):
-        pkt = synth.iframe(0x18) if i == 0 else synth.pframe()
-        oracle.data = pkt
-        oracle.offset = 0
-        oracle.decode_frame()
-        y_t, uv_t = eng.decode_frame(pkt)
-        S = oracle.stride
-        np.testing.assert_array_equal(
-            oracle.y_planes[0].reshape(-1, S), y_t, err_msg=f"frame {i} Y")
-        np.testing.assert_array_equal(
-            oracle.uv_planes[0].reshape(-1, S), uv_t,
-            err_msg=f"frame {i} UV")
-    # layout-independent containment accessor returns the unpacked frame
     prev = eng.ring_frame_np()
+    assert prev.shape == (HB, SB)
     np.testing.assert_array_equal(
-        prev[8:8 + H + H // 2, 8:8 + S][:H],
-        oracle.y_planes[0].reshape(-1, S)[:H])
+        prev[8:8 + H, 8:8 + S], oracle.y_planes[0].reshape(-1, S))
+    np.testing.assert_array_equal(
+        prev[8 + H:8 + H + H // 2, 8:8 + S],
+        oracle.uv_planes[0].reshape(-1, S))
+    # the zero aprons stay zero (taps outside the picture read 0)
+    assert not prev[:8].any() and not prev[:, :8].any()
+    assert not prev[:, 8 + S:].any() and not prev[8 + H + H // 2:].any()
+
+
+def test_vmem_wii_size_hbm_ring_matches_oracle():
+    """Stride-1024 geometry (640-wide, the 640x480 profile's stride) at a
+    short height: bit-exact vs the oracle in the uint8 ring layout."""
+    _geometry_vs_oracle(640, 48, seed=9, nframes=3)
+
+
+def test_vmem_packed_ring_matches_oracle():
+    """Stride-512 geometry (400-wide, the 3DS stride): bit-exact vs the
+    oracle, ring accessor in the buffer layout."""
+    _geometry_vs_oracle(400, 64, seed=13, nframes=4)
 
 
 def test_vmem_fused_gop_split_on_chunk_overflow(monkeypatch):
@@ -331,9 +254,9 @@ def test_vmem_fused_gop_split_on_chunk_overflow(monkeypatch):
               for f in range(F)]
     a = VmemBatchDecoder(W, H, v, batch=B, interpret=True, native=False)
     b = VmemBatchDecoder(W, H, v, batch=B, interpret=True, native=False)
-    ref = b.decode_gop(frames, fused=True)
+    ref = b.decode_gop(frames)
     monkeypatch.setattr(ve, "NCT_BUCKETS", (4,))  # force a split
-    got = a.decode_gop(frames, fused=True)
+    got = a.decode_gop(frames)
     np.testing.assert_array_equal(got, ref)
 
 
@@ -348,8 +271,8 @@ def test_device_crop_matches_host_crop():
     a = VmemBatchDecoder(W, H, v, batch=2, interpret=True, native=False)
     b = VmemBatchDecoder(W, H, v, batch=2, interpret=True, native=False,
                          crop=True)
-    full = a.decode_gop(frames, fused=True)          # (F, B, HH, S)
-    cropped = b.decode_gop(frames, fused=True)       # (F, B, HH, W)
+    full = a.decode_gop(frames)          # (F, B, HH, S)
+    cropped = b.decode_gop(frames)       # (F, B, HH, W)
     S = a.stride
     assert cropped.shape[-1] == W
     np.testing.assert_array_equal(cropped[:, :, :H], full[:, :, :H, :W])
@@ -432,3 +355,47 @@ def test_mc_residual_fusion_active_and_exact():
                         assert mask & 0b1100 == 0
                 assert 0 <= int(w3) < up["coefs"].shape[0]
     assert fused_rows > 50, (fused_rows, n_ops)
+
+
+@pytest.mark.parametrize("mode", ["pad", "split"])
+def test_gop_wrapper_bucket_padding_and_frame_split(monkeypatch, mode):
+    """The native GOP wrapper pads each stream's chunk stream to a ladder
+    step with all-zero (count 0) chunks, and splits a GOP at frame
+    boundaries into several launches when a stream outgrows the ladder;
+    both decode bit-exactly like the default ladder."""
+    from mobiclipdecoder_tpu.ops import vmem_engine as ve
+    W, H, B, F = 64, 48, 2, 5
+    v = MobiclipVersion.MODS_DS
+    synths = [StreamSynthesizer(W, H, v, seed=s) for s in (81, 82)]
+    frames = [[s.iframe(0x18) if f == 0 else s.pframe() for s in synths]
+              for f in range(F)]
+    ref = VmemBatchDecoder(W, H, v, batch=B, native=True).decode_gop(frames)
+    bd = VmemBatchDecoder(W, H, v, batch=B, native=True)
+    res = [nv.scan_gop_packed([frames[f][b] for f in range(F)])
+           for b, nv in enumerate(bd.natives)]
+    real = max(r["nct"] for r in res)
+    launches = []
+    orig = ve._decode_gop_fused_sblob
+
+    def counting(ring, blob, F, nct, *a, **k):
+        launches.append((F, nct))
+        return orig(ring, blob, F, nct, *a, **k)
+    monkeypatch.setattr(ve, "_decode_gop_fused_sblob", counting)
+    if mode == "pad":
+        monkeypatch.setattr(ve, "NCT_BUCKETS", (64,))
+        blob, nct, _nnzb = ve._assemble_gop_parts([ve._gop_part(r)
+                                                   for r in res])
+        assert nct == 64 > real
+        ops3 = blob[:B * nct * ve.CHUNK * 3].reshape(B, nct, ve.CHUNK, 3)
+        assert not ops3[:, real:].any()
+    else:
+        assert real > 3           # one chunk per frame or more
+        monkeypatch.setattr(ve, "NCT_BUCKETS", (2, 3))
+    bd2 = VmemBatchDecoder(W, H, v, batch=B, native=True)
+    got = bd2.decode_gop(frames)
+    np.testing.assert_array_equal(got, ref)
+    if mode == "pad":
+        assert launches == [(F, 64)]
+    else:
+        assert len(launches) > 1 and sum(f for f, _ in launches) == F
+        assert all(n <= 3 for _f, n in launches)
